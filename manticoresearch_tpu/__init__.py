@@ -1,7 +1,8 @@
-"""manticoresearch_tpu: a TPU-native full-text search engine.
+"""manticoresearch_tpu: a full-text search engine whose query path runs on
+an accelerator through JAX.
 
-From-scratch re-design of Manticore Search's capabilities for TPU hardware
-(jax/XLA/pallas compute path, Python/C++ host runtime). See ARCHITECTURE.md.
+From-scratch re-design of Manticore Search's capabilities (jax/XLA compute
+path on NVIDIA GPUs, Python/C++ host runtime). See ARCHITECTURE.md.
 """
 __version__ = "0.1.0"
 

@@ -1,7 +1,7 @@
 """Configuration system.
 
 Behavioral model: the reference's config machinery (sphinxutils.cpp:615-957
-key tables; searchdconfig.cpp RT-mode manticore.json). TPU redesign uses
+key tables; searchdconfig.cpp RT-mode manticore.json). This redesign uses
 declarative TOML (stdlib tomllib) with the same key semantics:
 
     [searchd]

@@ -234,8 +234,7 @@ class SearchIndex:
     def search_batch(self, queries: list[SearchQuery]) -> list[SearchResult]:
         """Batched execution: queries grouped by plan shape share ONE device
         launch and ONE packed result fetch (multi-query optimization,
-        sphinx.cpp:15474 — critical here because each device->host fetch
-        pays the accelerator-link RTT)."""
+        sphinx.cpp:15474 — each device->host fetch has a fixed cost)."""
         t0 = time.perf_counter()
         results: list[SearchResult | None] = [None] * len(queries)
         groups: dict[tuple, list[int]] = {}
@@ -311,7 +310,7 @@ class SearchIndex:
             rt_b = jax.tree.map(lambda *xs: np.stack(xs), *padded)
             g_pending.append((gspec, idxs, fn(data, rt_b)))
         # phase 2: ONE device->host fetch — group outputs concatenated on
-        # device first (every separate fetch pays the accelerator-link RTT)
+        # device first (every separate fetch has a fixed cost)
         outs = [p[2] for p in pending] + [p[2] for p in g_pending]
         if len(outs) > 1:
             import jax.numpy as jnp

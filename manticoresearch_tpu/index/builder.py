@@ -5,7 +5,7 @@ Behavioral model: the reference's offline build pipeline
 CSphHitBuilder::cidxHit, sphinx.cpp:8554) which streams sorted
 (wordid, rowid, position) hits into dictionary/doclist/hitlist/skiplist files.
 
-TPU-first redesign: instead of VByte-compressed streams with skiplists, we
+Device-first redesign: instead of VByte-compressed streams with skiplists, we
 pack postings into flat SoA arrays sorted by (term, rowid) — the device's
 "skip" is simply not gathering — and *eagerly* compute the query-independent
 BM25 factor tf/(tf+K1) per posting (K1=1.2, searchnode.cpp:45) so query-time
@@ -130,7 +130,7 @@ class PackedIndex:
         return self._attr_idx[name]
 
     def packed_store(self):
-        """Bit-plane packed posting store (built lazily, cached): the HBM
+        """Bit-plane packed posting store (built lazily, cached): the device
         posting format for single-shard serving (ops/packed_store.py)."""
         if not hasattr(self, "_pstore"):
             from ..ops.packed_store import build_store
@@ -736,7 +736,17 @@ def build_from_pretokenized(
         end_flag[last_idx] = 1
     pk_arr = (end_flag << 23) | pos_within.astype(np.int64)
 
-    sort_o = np.lexsort((pk_arr, row_arr, tid_arr))
+    # (term, row, position) order: take the documents in row order (each
+    # one's hits are in position order), then sort stably by term alone —
+    # a radix sort when term ids fit 16 bits
+    lens = counts[order]
+    starts = np.asarray(doc_offsets[:-1], np.int64)[order]
+    by_row = np.arange(len(tid_arr)) - np.repeat(
+        np.cumsum(lens) - lens - starts, lens)
+    key = tid_arr[by_row]
+    if len(key) and key.max() < 2**16:
+        key = key.astype(np.uint16)
+    sort_o = by_row[np.argsort(key, kind="stable")]
     tid_arr, row_arr, pk_arr = tid_arr[sort_o], row_arr[sort_o], pk_arr[sort_o]
 
     H = len(tid_arr)
@@ -767,7 +777,9 @@ def build_from_pretokenized(
     term_offsets = np.searchsorted(post_tid, np.arange(T + 1)).astype(np.int32)
     term_docs = np.diff(term_offsets).astype(np.int32)
     term_hits = np.bincount(tid_arr, minlength=T).astype(np.int32) if H else np.zeros(T, np.int32)
-    post_tfq = (post_tf / (post_tf + np.float32(SPH_BM25_K1))).astype(np.float32)
+    # float32 throughout, as the device recomputes it from packed tf
+    tf32 = post_tf.astype(np.float32)
+    post_tfq = tf32 / (tf32 + np.float32(SPH_BM25_K1))
 
     field_lens = np.zeros((n, 1), dtype=np.int32)
     if n:

@@ -6,7 +6,7 @@ merger sphinx.cpp CSphIndex_VLN::Merge): postings of live rows are
 concatenated and re-sorted under the merged dictionary; dead (killed /
 replaced) rows are dropped — merge doubles as compaction.
 
-TPU-first shape: everything is flat SoA arrays already, so the merge is
+Device-first shape: everything is flat SoA arrays already, so the merge is
 vectorized numpy — union the sorted dictionaries, remap term ids and
 rowids, one lexsort of (tid, row) over the union, and a gather of hit
 slices into the new posting order. Cost is O(P log P) in postings, not
@@ -262,7 +262,7 @@ def merge_packed(segments: list[PackedIndex],
         post_rowid=row.astype(np.int32),
         post_tf=post_tf,
         post_tfq=(post_tf.astype(np.float32)
-                  / (post_tf + np.float32(SPH_BM25_K1))).astype(np.float32),
+                  / (post_tf.astype(np.float32) + np.float32(SPH_BM25_K1))),
         post_fieldmask=fm.astype(np.int32),
         post_hit_offset=post_hit_offset,
         hit_packed=hit_packed.astype(np.int32),

@@ -6,7 +6,7 @@ CALL PQ('idx', docs) matches each document against every stored query
 (MatchDocuments:79), with term-based segment rejects as a pre-filter
 (SegmentGetRejects:216).
 
-TPU redesign: the incoming doc batch builds one small PackedIndex (the
+Device redesign: the incoming doc batch builds one small PackedIndex (the
 batch IS the index — reverse of normal search), then every stored query
 runs against it through the ordinary device engine; a host-side term-reject
 prefilter skips queries whose required terms don't appear in the batch

@@ -8,7 +8,7 @@ accumulator.h:84); COMMIT builds an in-RAM segment searchable immediately
 (RtBinlog_c:762); REPLACE kills older versions of the docid across segments
 via kill-lists; TRUNCATE/OPTIMIZE manage the segment set.
 
-TPU redesign: a "segment" here is a PackedIndex uploaded as device arrays
+Device redesign: a "segment" here is a PackedIndex uploaded as device arrays
 (small segments are cheap to build: the builder is vectorized numpy).
 Search fans out over segments with term stats summed across them
 (the reference's qword setup also aggregates per-segment stats) and merges

@@ -2,7 +2,7 @@
 
 Behavioral model: the reference's index files (.sph header + data files,
 sphinx.cpp:859-877) and the RT-mode manifest (manticore.json,
-searchdconfig.cpp:481). TPU redesign: one npz of SoA arrays + a JSON header
+searchdconfig.cpp:481). Device redesign: one npz of SoA arrays + a JSON header
 per index/segment — the arrays are already in device layout, so loading is
 mmap + device upload with no decode step.
 """

@@ -31,10 +31,14 @@ def get_native_lib():
         try:
             if (not os.path.exists(_SO)
                     or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+                # build under a private name, then rename: processes that
+                # build at once never load a half-written library
+                tmp = f"{_SO}.{os.getpid()}.tmp"
                 subprocess.run(
                     ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-                     _SRC, "-o", _SO],
+                     _SRC, "-o", tmp],
                     check=True, capture_output=True, timeout=120)
+                os.replace(tmp, _SO)
             lib = ctypes.CDLL(_SO)
             lib.mt_tokenize.restype = ctypes.c_int
             lib.mt_tokenize.argtypes = [

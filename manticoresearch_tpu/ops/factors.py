@@ -20,6 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .search import segment_sums_in_order
+
 DOC_FACTORS = {"bm25", "max_lcs", "field_mask", "query_word_count",
                "doc_word_count"}
 FIELD_FACTORS = {"lcs", "user_weight", "hit_count", "word_count", "tf_idf",
@@ -73,6 +75,9 @@ class FactorContext:
         hrow, hpk, hqp, hslot, valid = self.stream
         hfield = (hpk >> 24) & 0xFF
         row = jnp.where(valid, hrow, self.N)
+        if reduce == "add" and jnp.issubdtype(vals.dtype, jnp.floating):
+            return self._sum_per_cell(hrow, hfield, 0, valid, vals, 1)[
+                :, :, 0]
         if reduce == "add":
             return jnp.zeros((self.N + 1, self.F), vals.dtype).at[
                 row, hfield].add(jnp.where(valid, vals, 0))
@@ -81,6 +86,28 @@ class FactorContext:
             return jnp.full((self.N + 1, self.F), big, vals.dtype).at[
                 row, hfield].min(jnp.where(valid, vals, big))
         raise ValueError(reduce)
+
+    def _sum_per_cell(self, srow, sfield, sq, ok, vals, Q):
+        """[N+1, F, Q] sums of per-hit `vals` over (row, field, qword)
+        cells, each cell's hits added in stream order
+        (segment_sums_in_order), so the float result is the same on every
+        run and backend. Hits that are not `ok` (bucket padding) sort last
+        as one-entry segments and are dropped, so the in-order loop runs
+        only as many times as the most hits in one cell."""
+        N, F = self.N, self.F
+        row = jnp.where(ok, srow, N + 1)
+        q = jnp.broadcast_to(jnp.asarray(sq, jnp.int32), row.shape)
+        row, field, q, v = jax.lax.sort(
+            (row, sfield.astype(jnp.int32), q, jnp.where(ok, vals, 0.0)),
+            num_keys=3)
+        new = ((row[1:] != row[:-1]) | (field[1:] != field[:-1])
+               | (q[1:] != q[:-1]))
+        head = jnp.concatenate([jnp.ones(1, bool), new]) | (row > N)
+        seg = jnp.cumsum(head.astype(jnp.int32)) - 1
+        sums = segment_sums_in_order(seg, head, v, v.shape[0])
+        return jnp.zeros((N + 1, F, Q), v.dtype).at[
+            jnp.where(head, row, N + 1), field, q].set(sums[seg],
+                                                       mode="drop")
 
     def get(self, name: str):
         if name in self._cache:
@@ -451,9 +478,7 @@ class FactorContext:
                         seen_m[w] = seen_m[w] | jnp.where(
                             take & ((q_j >> 5) == w),
                             jnp.int32(1) << (q_j & 31), 0)
-            A = jnp.zeros((N + 1, F, Q), jnp.float32).at[
-                jnp.where(sval == 1, srow, N), sfield, qc].add(
-                jnp.where(sval == 1, tc, 0.0))
+            A = self._sum_per_cell(srow, sfield, qc, sval == 1, tc, Q)
             # log(1.0f + ws) in f32 — the reference rounds 1+ws BEFORE the log
             # (UpdateATC, sphinxsearch.cpp:3992); log1p differs at ulp
             ws = jnp.sum(A * idf_q[None, None, :], axis=-1)
@@ -499,9 +524,8 @@ class FactorContext:
                         seen_m[w] = seen_m[w] | jnp.where(
                             take & ((slot_j >> 5) == w),
                             jnp.int32(1) << (slot_j & 31), 0)
-            A = jnp.zeros((N + 1, F, max(S, 1)), jnp.float32).at[
-                jnp.where(sval == 1, srow, N), sfield, slot_c].add(
-                jnp.where(sval == 1, tc, 0.0))
+            A = self._sum_per_cell(srow, sfield, slot_c, sval == 1, tc,
+                                   max(S, 1))
             ws = jnp.sum(A * idfv[None, None, :], axis=-1)
             return jnp.log(jnp.float32(1.0) + ws)
         if name == "exact_hit":

@@ -6,7 +6,7 @@ keep the best row per group (within-group order: weight desc, docid asc),
 maintain aggregates (COUNT(*)/@count, COUNT(DISTINCT), SUM/MIN/MAX/AVG),
 then order groups for output.
 
-TPU-native redesign: replace the hash table with sort-segment-reduce —
+Device redesign: replace the hash table with sort-segment-reduce —
   1. sort rows by (group key, ~weight, rowid): within-group best-first
   2. segment boundaries = group starts; segment id by cumsum
   3. aggregates = scatter-reduce over segment ids
@@ -24,7 +24,7 @@ import jax.numpy as jnp
 
 from ..query.expr import eval_expr
 from ..query.plan import PlanSig
-from .search import INT32_MIN, build_match_core
+from .search import INT32_MIN, build_match_core, segment_running_sums
 
 INT32_MAX = 2**31 - 1
 
@@ -141,9 +141,19 @@ def _build_groupby_fn(sig: PlanSig, gspec: GroupSpec, n_rows: int,
             v = v.astype(jnp.float32 if a.is_float else jnp.int32)
             v_sorted = v[s_idx]
             if a.kind in ("sum", "avg"):
-                dt = jnp.float32 if (a.is_float or a.kind == "avg") else jnp.int32
-                acc = jnp.zeros(Z, dt).at[gid_scatter].add(
-                    jnp.where(s_elig, v_sorted, 0).astype(dt))
+                in_float = a.is_float or a.kind == "avg"
+                dt = jnp.float32 if in_float else jnp.int32
+                vals = jnp.where(s_elig, v_sorted, 0).astype(dt)
+                if not in_float:
+                    acc = jnp.zeros(Z, dt).at[gid_scatter].add(vals)
+                else:
+                    # float sums in a fixed order (groups are contiguous
+                    # after the sort), read at each group's last row
+                    run = segment_running_sums(vals, new_group)
+                    last = s_elig & jnp.concatenate(
+                        [new_group[1:] | ~s_elig[1:], jnp.ones(1, bool)])
+                    acc = jnp.zeros(Z, dt).at[
+                        jnp.where(last, gid_scatter, Z)].set(run, mode="drop")
                 if a.kind == "avg":
                     acc = acc / jnp.maximum(counts, 1).astype(jnp.float32)
                 agg_results.append(acc)
@@ -244,8 +254,8 @@ def get_batched_groupby_fn(sig: PlanSig, gspec: GroupSpec, n_rows: int,
     """Batched variant: vmap over per-query runtimes, one launch + ONE
     packed i32 fetch for B same-shape grouped queries (the multi-sorter
     single pass of CheckMultiQuery/FACET, sphinx.cpp:15474 — and the
-    accelerator-link RTT amortization that the relevance path already has
-    in get_batched_search_fn). Float aggregates ride bitcast to i32."""
+    one-fetch-per-batch that the relevance path already has in
+    get_batched_search_fn). Float aggregates ride bitcast to i32."""
     kern = _build_groupby_fn(sig, gspec, n_rows, n_fields, slot_pb,
                              slot_hb, n_hit_iters)
     vkern = jax.vmap(kern, in_axes=(None, 0))

@@ -18,8 +18,12 @@ tree (searchnode.cpp:2570,3465), ranker weight composition
     weightsum rank = sum(field_weights[f] for f in docfieldmask)  [:1110-1129]
     final = bm25part + rank * SPH_BM25_SCALE
 - ties break (weight desc, docid asc) because rowids are docid-ordered and
-  XLA top_k prefers lower indices on equal keys (MatchRelevanceLt_fn,
-  sphinxsort.cpp:4534 parity).
+  lax.top_k keeps the lower index on equal keys, as JAX documents for every
+  backend (MatchRelevanceLt_fn, sphinxsort.cpp:4534 parity).
+
+Exactness does not depend on the backend's reduction order: every float
+sum that feeds a weight adds its terms in slot order through scatters with
+unique indices, so a GPU's unordered atomics never decide a result.
 """
 from __future__ import annotations
 
@@ -57,6 +61,41 @@ def _gather_flat(starts, lengths, bucket, n_slots):
     valid = j < total
     gidx = jnp.where(valid, starts[slot] + within, 0)
     return slot, gidx, valid
+
+
+def segment_running_sums(vals, is_head):
+    """Inclusive running sums of `vals` that restart where `is_head` is
+    set, associated in the fixed order of lax.associative_scan — the same
+    bits on every run and backend, unlike a float scatter-add with
+    duplicate indices. A segment's total is the entry at its end."""
+    def comb(a, b):
+        return jnp.where(b[1], b[0], a[0] + b[0]), a[1] | b[1]
+    return jax.lax.associative_scan(comb, (vals, is_head))[0]
+
+
+def segment_sums_in_order(seg, is_head, vals, n_seg: int,
+                          max_len: int | None = None):
+    """Per-segment float sums ((0 + v0) + v1) + ... into `n_seg` outputs
+    (`seg` gives each entry's output index). `vals` is grouped by
+    segment, `is_head` marks each segment's first entry, and each
+    segment's entries are in the order they must be added. Entry j of a
+    segment lands in the j-th scatter, and every scatter has unique
+    indices, so no two additions race: a scatter-add with duplicate
+    indices runs as unordered atomics on a GPU and can move a float sum
+    by an ulp. A static `max_len` runs that many scatters and drops
+    entries past it (callers bound every segment whose sum they read);
+    None runs to the longest segment."""
+    n = vals.shape[0]
+    idx = jnp.arange(n, dtype=jnp.int32)
+    rank = idx - jax.lax.cummax(jnp.where(is_head, idx, 0))
+
+    def add_rank(r, out):
+        return out + jnp.zeros(n_seg, vals.dtype).at[
+            jnp.where(rank == r, seg, n_seg)].add(vals, mode="drop")
+
+    n_ranks = jnp.max(rank) + 1 if max_len is None else max_len
+    return jax.lax.fori_loop(0, n_ranks, add_rank,
+                             jnp.zeros(n_seg, vals.dtype))
 
 
 def _lex_binary_search_pair(key_a, key_b, arr_a, arr_b, lo, hi, n_iters,
@@ -115,10 +154,9 @@ def _pred_scan(a_row, a_key, b_row, b_key, b_valid):
     """Vectorized predecessor lookup in ONE sorted hit slice: for each
     query (a_row[i], a_key[i]), the largest valid (b_row[j], b_key[j]) <=
     it. Computed as one lax.sort of the concatenated (row, key, tag)
-    triples + an associative "last b seen" scan + scatter-back — replacing
-    per-element binary search, whose random gathers are ~2 orders of
-    magnitude slower than sort/scan passes on TPU (v5e measured: 512k
-    gather ~30ms vs contiguous slice ~0.3ms; see build_match_core note).
+    triples + a "last b seen" cummax + scatter-back, in place of
+    per-element binary search (random gathers). Whether this beats binary
+    search on the GPU is unmeasured.
     Returns (pred_row, pred_key, pred_exists) aligned with the queries."""
     na = a_row.shape[0]
     nb = b_row.shape[0]
@@ -132,8 +170,7 @@ def _pred_scan(a_row, a_key, b_row, b_key, b_valid):
     rows_s, keys_s, tag_s = jax.lax.sort((rows, keys, tag), num_keys=3)
     bflag = tag_s == 0
     # "last b entry at-or-before me": cummax over b positions (a single
-    # cumulative-reduce pass — associative_scan's O(n log n) slice graph
-    # took minutes to compile on TPU for 2^20 inputs)
+    # cumulative-reduce pass)
     iota = jnp.arange(rows_s.shape[0], dtype=jnp.int32)
     j = jax.lax.cummax(jnp.where(bflag, iota, -1))
     jc = jnp.clip(j, 0, rows_s.shape[0] - 1)
@@ -318,8 +355,7 @@ def get_batched_search_fn(sig: PlanSig, n_rows: int, n_fields: int,
     same-shape queries, output packed into ONE i32 array [B, 2k+1]
     (rowid[k] ++ weight[k] ++ found) so a serving host pays a single
     device->host fetch per batch (the multi-query optimization of
-    CheckMultiQuery/MultiQueryEx, sphinx.cpp:15474, re-cast for a
-    high-RTT accelerator link)."""
+    CheckMultiQuery/MultiQueryEx, sphinx.cpp:15474)."""
     kern = build_kernel(sig, n_rows, n_fields, slot_pb, slot_hb,
                         n_hit_iters)
     vkern = jax.vmap(kern, in_axes=(None, 0))
@@ -347,13 +383,12 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
       candidate slots; later passes (field-limited slots, phrase nodes,
       the LCS ranker stream, filters, ordering) map rows into candidate
       space via binary search. Per-query cost then tracks posting sizes,
-      not corpus size — the TPU analog of the reference's skiplist
+      not corpus size — the device analog of the reference's skiplist
       economics (sphinx.cpp:8522, sphinxsearch.h:35-40).
 
     slot_pb / slot_hb: per-slot posting / hit bucket sizes (pow2 of df /
     hit count). Each slot's CSR range is CONTIGUOUS, so the kernel pulls it
-    with `lax.dynamic_slice` — on TPU a contiguous DMA, ~100x faster than the
-    equivalent gather (measured on v5e: 512k gather ~30ms vs slice ~0.3ms).
+    with `lax.dynamic_slice` (a contiguous copy) rather than a gather.
     Device arrays are over-padded by the max bucket so slices never clamp."""
     N = n_rows
     F = n_fields
@@ -526,8 +561,7 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
             # field-limited slots: their rows must be candidates even though
             # presence/tf comes from the hit pass). Contributions ride the
             # sort as payloads; lax.sort is stable, so within a row segment
-            # entries stay in slot order — float accumulation order matches
-            # the dense path's slot-by-slot scatter-adds exactly.
+            # entries stay in slot order.
             rows_parts, con_parts, fm_parts = [], [], []
             bit_parts = [[] for _ in range(W)]  # per mask word
             for s in range(S):
@@ -572,7 +606,7 @@ def build_match_core(sig: PlanSig, n_rows: int, n_fields: int,
             # segment id -> row; empty segments (ids past the last head)
             # keep the pad row N, so cand_row stays sorted ascending
             cand_row = jnp.full(B, N, jnp.int32).at[seg].min(srow)
-            tfidf = jnp.zeros(B, jnp.float32).at[seg].add(scon)
+            tfidf = segment_sums_in_order(seg, is_head, scon, B, S)
             # per (slot, doc) at most one entry -> add == OR for bit masks
             termmask = jnp.stack(
                 [jnp.zeros(B, jnp.int32).at[seg].add(sb) for sb in sbits],

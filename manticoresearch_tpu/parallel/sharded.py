@@ -5,10 +5,10 @@ Behavioral model: the reference's distributed index + agent fan-out
 searchd.cpp:6550-6860; per-agent merged chunks searchd.cpp:6737) and the
 global-IDF aggregation (SetupLocalDF, searchd.cpp:5869).
 
-TPU-native redesign (SURVEY §5.8): shards are doc partitions living as
+Device-native redesign (SURVEY §5.8): shards are doc partitions living as
 mesh-sharded SoA arrays (leading axis = mesh axis "shard"). One shard_mapped
 XLA program runs the per-shard search kernel, then merges per-shard top-k
-candidates with an all_gather over ICI + a replicated multi-key sort with the
+candidates with an all_gather across the mesh + a replicated multi-key sort with the
 exact reference tie-break (weight desc, docid asc — docids carried as i32
 hi/lo pairs so 63-bit ids compare exactly). The entire master/agent protocol
 collapses into one program launch; "local df" aggregation happens host-side
@@ -305,7 +305,7 @@ class ShardedIndex:
     def _sharded_fn(self, sig: PlanSig, slot_pb, slot_hb, n_hit_iters):
         """One shard_mapped XLA program serving a whole BATCH of same-shape
         queries: per-shard kernels vmapped over the batch, per-shard top-k
-        chunks merged with an all_gather over ICI + a replicated multi-key
+        chunks merged with an all_gather across the mesh + a replicated multi-key
         sort (one pre-merged chunk per shard, like agents return one chunk
         each — searchd.cpp:6737; merge = MinimizeAggrResult semantics,
         searchd.cpp:4816,3990). Output is ONE packed i32 array

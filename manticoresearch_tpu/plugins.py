@@ -1,7 +1,7 @@
 """UDF / plugin system (host-side).
 
 Behavioral model: the reference's UDF ABI (sphinxudf.h, CREATE FUNCTION ...
-SONAME 'lib.so'; sphinxplugin.cpp). TPU redesign: UDFs are Python callables
+SONAME 'lib.so'; sphinxplugin.cpp). This redesign: UDFs are Python callables
 registered either programmatically (register_udf) or via SQL:
 
     CREATE FUNCTION myfunc RETURNS INT SONAME 'mymodule:myfunc'

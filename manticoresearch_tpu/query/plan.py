@@ -65,7 +65,7 @@ class PlanSig:
     sparse: bool = False        # sparse candidate pipeline: evaluate over
                                 # the union of the query terms' postings
                                 # (sorted + segment-reduced) instead of
-                                # dense [N+1] accumulators — the TPU analog
+                                # dense [N+1] accumulators — the device analog
                                 # of skiplist economics (sphinx.cpp:8522):
                                 # per-query cost tracks posting sizes, not
                                 # corpus size

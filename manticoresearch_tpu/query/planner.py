@@ -65,7 +65,7 @@ def _next_pow2(x: int, lo: int = 128) -> int:
 def _next_pow4(x: int, lo: int = 1024) -> int:
     """Bucket quantized in 4x steps: coarser than pow2 on purpose — every
     distinct (slot_pb, slot_hb) tuple is a separate XLA program, and
-    compiles on this link cost 25-150s each; halving the bucket count per
+    compiles cost seconds each; halving the bucket count per
     dimension collapses the compile matrix at a bounded (<4x, amortized
     ~2x) padding-compute cost that is micro vs. minutes."""
     n = lo
@@ -1353,11 +1353,11 @@ def plan_query(
     elif _mode == "always":
         sparse = sparse_capable
     else:
-        # measured on v5e @200k docs: the dense [N] scatter + top-k beats
-        # the candidate sort until the corpus is large enough that the
-        # dense passes dominate (config1 735 vs 503 qps dense-vs-sparse
-        # at 200k); the union sort wins when cost tracks postings, i.e.
-        # big N with a comparatively small candidate set
+        # the dense [N] scatter + top-k is assumed to beat the candidate
+        # sort until the corpus is large enough that the dense passes
+        # dominate; the union sort wins when cost tracks postings, i.e.
+        # big N with a comparatively small candidate set. The thresholds
+        # are unmeasured on the GPU (ROADMAP §1.5)
         sparse = (sparse_capable
                   and index.n_docs >= 400_000
                   and B_total <= max(index.n_docs // 4, 0))

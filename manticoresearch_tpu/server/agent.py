@@ -18,8 +18,8 @@ The wire protocol mirrors the master<->agent request/reply *semantics*
 as a compact length-prefixed JSON protocol over TCP; agents here are
 other daemons of this framework, not the reference's binary SphinxAPI.
 
-TPU note (SURVEY §5.8): this is the *inter-host DCN* tier. Intra-pod
-sharding stays a single pjit program over the ICI mesh
+Note (SURVEY §5.8): this is the inter-host tier. Sharding over the cards
+of one host stays a single shard_map program over the device mesh
 (parallel/sharded.py); agents exist for capacity past one host.
 """
 from __future__ import annotations

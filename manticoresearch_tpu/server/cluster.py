@@ -6,7 +6,7 @@ certification of ReplicationCommand_e write sets, searchdreplication.h:87;
 JOIN/CREATE/DELETE/ALTER CLUSTER statements, searchdsql.h; `cluster:table`
 write routing, HandleCmdReplicate searchdreplication.h:30).
 
-TPU-native redesign (no wsrep library): a deterministic SEQUENCER — the
+Redesign (no wsrep library): a deterministic SEQUENCER — the
 cluster's creator — assigns every write set a global sequence number and
 serves the ordered log to all members. Every member, including the write's
 originator and the sequencer itself, applies records strictly in sequence

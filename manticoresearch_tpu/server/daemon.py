@@ -14,6 +14,7 @@ import argparse
 import asyncio
 import os
 import signal
+import threading
 
 from ..exec.session import Catalog
 from .http import HttpServer
@@ -47,6 +48,22 @@ class Daemon:
             self.api = ApiServer(self.catalog, host, api_port)
         self.flush_period = flush_period
         self.ping_interval = ping_interval
+        # set once every listener is bound; stop() ends run() from any
+        # thread (the daemon may run on a thread of a larger process)
+        self.ready = threading.Event()
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._stop: asyncio.Event | None = None
+
+    def listening_ports(self) -> dict[str, int]:
+        """Bound ports of the MySQL and HTTP listeners (port 0 in the
+        constructor picks free ones)."""
+        return {name: srv._server.sockets[0].getsockname()[1]
+                for name, srv in (("mysql", self.mysql), ("http", self.http))}
+
+    def stop(self) -> None:
+        """Ask run() to shut down; safe to call from another thread."""
+        if self._loop is not None and self._stop is not None:
+            self._loop.call_soon_threadsafe(self._stop.set)
 
     def _apply_config(self, cfg) -> None:
         """Register config-declared indexes (rt: create if missing; plain:
@@ -126,24 +143,27 @@ class Daemon:
         pinger = asyncio.create_task(self._periodic_ping())
         flusher = asyncio.create_task(self._periodic_flush())
         optimizer = asyncio.create_task(self._periodic_optimize())
-        stop = asyncio.Event()
-        loop = asyncio.get_running_loop()
+        stop = self._stop = asyncio.Event()
+        loop = self._loop = asyncio.get_running_loop()
+        # signal handlers exist only on the main thread (RuntimeError
+        # elsewhere); a daemon on another thread is ended by stop()
         for sig in (signal.SIGINT, signal.SIGTERM):
             try:
                 loop.add_signal_handler(sig, stop.set)
-            except NotImplementedError:
+            except (NotImplementedError, RuntimeError):
                 pass
         # SIGHUP -> rotation pickup (CheckRotate, searchd.cpp:17476):
         # swap in <name>.new index dirs written by `indexer --rotate`
         try:
             loop.add_signal_handler(signal.SIGHUP, self.catalog.rotate)
-        except (NotImplementedError, AttributeError):
+        except (NotImplementedError, AttributeError, RuntimeError):
             pass
         pidfile = None
         if self.catalog.data_dir:
             pidfile = os.path.join(self.catalog.data_dir, "searchd.pid")
             with open(pidfile, "w") as f:
                 f.write(str(os.getpid()))
+        self.ready.set()
         await stop.wait()
         if pidfile:
             try:
@@ -228,6 +248,10 @@ def main(argv=None) -> None:
         import sys
         run_watchdog(argv if argv is not None else sys.argv[1:])
         return
+    # the watchdog parent above never touches JAX: only this process
+    # holds the card
+    from ..compile_cache import configure_compile_cache
+    configure_compile_cache()
     # crash log: a hard fault leaves a traceback next to the data
     # (CrashLogger/sphBacktrace analog, searchd.cpp crash handler)
     import faulthandler

@@ -2,7 +2,7 @@
 
 Behavioral model: the reference replicates RT/PQ write sets between
 cluster nodes (searchdreplication.cpp: Galera total-order certification of
-ReplicationCommand_e records; new nodes catch up via SST/IST). TPU
+ReplicationCommand_e records; new nodes catch up via SST/IST). This
 redesign is a simpler primary->replica log stream, Raft-style: the
 primary serves each table's binlog over TCP from a requested offset and
 then tails it; the replica applies records through the same code path as

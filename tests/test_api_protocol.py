@@ -12,9 +12,6 @@ from manticoresearch_tpu.server.api import (ApiServer, CMD_KEYWORDS,
                                             VER_KEYWORDS, VER_PING,
                                             VER_SEARCH)
 
-PORT = 19412
-
-
 def _s(txt):
     b = txt.encode()
     return struct.pack(">L", len(b)) + b
@@ -115,12 +112,14 @@ def api_port():
     started = threading.Event()
     stop = asyncio.Event()
     loop_box: list = []
+    port_box: list = []
 
     def run():
         async def main():
             loop_box.append(asyncio.get_running_loop())
-            srv = ApiServer(cat, port=PORT)
+            srv = ApiServer(cat, port=0)
             await srv.start()
+            port_box.append(srv._server.sockets[0].getsockname()[1])
             started.set()
             await stop.wait()
             await srv.stop()
@@ -128,8 +127,8 @@ def api_port():
 
     th = threading.Thread(target=run, daemon=True)
     th.start()
-    started.wait(5)
-    yield PORT
+    assert started.wait(5)
+    yield port_box[0]
     # asyncio.Event is not thread-safe: set it on the server's own loop
     if loop_box:
         loop_box[0].call_soon_threadsafe(stop.set)

@@ -18,7 +18,7 @@ from manticoresearch_tpu.schema import AttrDef, AttrType, Schema
 
 WORDS = ["alpha", "beta", "gamma", "delta", "epsilon", "zeta", "eta",
          "theta", "iota", "kappa", "lam", "mu", "nu", "xi", "omicron",
-         "search", "engine", "fast", "index", "query", "tpu", "device"]
+         "search", "engine", "fast", "index", "query", "card", "device"]
 
 COLORS = ["red", "green", "blue", "cyan"]
 
@@ -159,7 +159,7 @@ def test_differential_random_queries(corpora):
 def test_differential_at_scale():
     """Randomized differential at 200k docs (opt-in: -m slow): plain vs
     8-way sharded, packed store active on both, with BLOCK=128 and bucket
-    boundaries genuinely crossed (VERDICT r2 weak #6)."""
+    boundaries genuinely crossed."""
     import os
     rng = np.random.RandomState(3)
     n = int(os.environ.get("MT_DIFF_DOCS", "200000"))
